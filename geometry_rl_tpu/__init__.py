@@ -1,4 +1,4 @@
-"""geometry_rl_tpu — TPU-native geometry-aware RL framework.
+"""geometry_rl_tpu — geometry-aware RL framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 thobotics/geometry_rl (ICLR 2025, "Geometry-aware RL for Manipulation of
@@ -7,15 +7,15 @@ Varying Shapes and Deformable Objects"): batched manipulation simulation
 and trust-region projected PPO (TRPL) — rollout, advantage and update all
 on-device under a single jit.
 
-Layer map (mirrors reference layers, see /root/repo/SURVEY.md §1):
+Layer map (mirrors reference layers, see SURVEY.md §1):
   sim/      — batched physics (replaces Isaac Sim / geometry_orbit, L0)
   envs/     — task layer: scenes, obs/reward/reset terms, registry (L1-L2)
   graphs/   — obs -> padded heterogeneous graphs (L3)
   models/   — HEPi, PonitaGCN/EMPN, Transformer, GCN, DeepSets (L4)
   rl/       — Gaussian policies, projections, TRPL/PPO losses, GAE (L5)
   train/    — on-device training loop, checkpointing, logging (L6-L7)
-  parallel/ — device-mesh sharding utilities (env-axis DP over ICI)
-  ops/      — XLA/Pallas kernels (segment ops, knn, ...)
+  parallel/ — device-mesh sharding utilities (env-axis data parallelism)
+  ops/      — hot ops: segment ops, projections, the fused cloth solve
   utils/    — geometry math (quaternions, transforms, S2 grids)
 """
 

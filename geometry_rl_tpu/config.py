@@ -46,7 +46,7 @@ DEFAULTS: Dict[str, Any] = {
     "algorithm": {
         "latent_dim": 64,
         "num_ori": 16,
-        "dtype": "bfloat16",  # model activation dtype on TPU (f32 params)
+        "dtype": "bfloat16",  # model activation dtype (f32 params)
         "training_noise": False,  # pyg_data/utils.noise_like augmentation
         "training_noise_std": 1e-2,
         "policy": {
@@ -120,7 +120,7 @@ DEFAULTS: Dict[str, Any] = {
     },
     "parallel": {
         # env-axis data parallelism over all visible devices (global mesh
-        # under a GEOMRL_MULTIHOST pod launch). "auto" = shard whenever the
+        # under a multi-process launch). "auto" = shard whenever the
         # env count divides over >1 device; true = require it; false = pin
         # one device.
         "data_parallel": "auto",

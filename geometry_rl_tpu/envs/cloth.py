@@ -1,6 +1,6 @@
 """Cloth hanging task: hang a holed cloth onto a hook.
 
-TPU redesign of `geometry_rl/orbit/tasks/manipulation/cloth_tasks/`: the PhysX
+JAX redesign of `geometry_rl/orbit/tasks/manipulation/cloth_tasks/`: the PhysX
 15x15 particle cloth with a procedurally-placed hole
 (SquareClothWithHoles, scene_cfg.py:33-45,154-177) becomes an XPBD particle
 grid with stretch / shear / bend distance-constraint groups whose compliances
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..sim.types import ParticleState, RigidBodySpec, RigidBodyState, SceneState, box_inertia
+from ..sim.types import ClothSolveSpec, ParticleState, RigidBodySpec, RigidBodyState, SceneState, box_inertia
 from ..sim.xpbd import (
     BodyAttachment,
     DistanceGroup,
@@ -121,9 +121,9 @@ class ClothTaskCfg:
     num_envs: int = 40
     num_holes: int = 20  # TRAIN_SIZE placements (scene_cfg.py:172)
     hole_split: str = "train"  # train | test (scene_cfg.py split_combinations)
-    # fused VMEM position solve (sim/pallas_cloth.py): False = XLA path,
-    # True = one-env-per-program kernel, "tiled" = env-in-lanes batch tiles
-    # (~2x XLA on v5e), "auto" = tiled on TPU / XLA elsewhere
+    # fused position-solve kernel (sim/pallas_cloth.py): True = kernel,
+    # False = XLA solver, "auto" = kernel on a GPU unless self-collision or
+    # the velocity-pass material is on, XLA elsewhere
     use_pallas_solver: object = "auto"
     episode_length: int = 100
     decimation: int = 2
@@ -141,14 +141,14 @@ class ClothTaskCfg:
     bend_compliance: float = 1.0
     # PhysX particle-cloth self-collision (particle_contact_offset,
     # scene_cfg.py:43-45 restOffset = 0.5/(N+1), separation = 2*restOffset).
-    # Off by default: enables the dense all-pairs pass in BOTH the XLA solver
-    # and the Pallas kernels (parity-gated in tests/test_envs_cloth.py).
+    # Off by default: enables the dense all-pairs pass of the XLA solver
+    # (the fused kernel has none, so "auto" then picks the XLA solver).
     self_collision: bool = False
     self_collision_distance: Optional[float] = None  # default 2*restOffset
     # velocity-pass material on the hook contact (RigidBodyMaterialCfg()
     # defaults: dynamic == static friction, restitution 0). The velocity pass
     # lives in the XLA solver only; enabling it steers "auto" to the XLA path
-    # and rejects an explicitly requested Pallas solver.
+    # and rejects an explicitly requested kernel.
     restitution: float = 0.0
     dynamic_friction_scale: float = 0.0
 
@@ -345,11 +345,8 @@ class ClothEnv:
 
         self.obs_spec = self._build_obs_spec()
 
-        # --- fused Pallas position solver (optional) -------------------------
-        from ..sim.pallas_cloth import ClothSolveSpec
-
+        # --- fused position-solve kernel (optional) -------------------------
         self.solve_spec = ClothSolveSpec(
-            group_sizes=tuple(int(g.i.shape[0]) for g in self.distance_groups),
             group_compliance=tuple(float(np.asarray(g.compliance)[0]) for g in self.distance_groups),
             num_particles=N_PARTICLES,
             num_bodies=G,
@@ -358,33 +355,26 @@ class ClothEnv:
             hook_radius=cfg.hanger_radius,
             hook_half_len=cfg.hanger_half_len,
             hook_friction=0.2,
-            self_min_dist=float(self.self_contacts[0].min_dist) if self.self_contacts else 0.0,
         )
-        topo = []
-        for g in self.distance_groups:
-            topo += [g.i, g.j, g.rest]
-        self.group_topology = topo
-        self.group_mask_list = [g.mask for g in self.distance_groups]
-        # self-collision operands padded over the G pseudo-body rows
-        if self.self_contacts:
-            sc = self.self_contacts[0]
-            self.self_pair_mask_full = jnp.pad(sc.pair_mask, ((0, G), (0, G)))
-            self.self_active_full = jnp.pad(sc.active, ((0, 0), (0, G)))
-        else:
-            self.self_pair_mask_full = self.self_active_full = None
+        self.solver_mode = self._choose_solver(cfg)
 
-        mode = cfg.use_pallas_solver
-        material_on = cfg.restitution > 0.0 or cfg.dynamic_friction_scale > 0.0
-        if mode == "auto":
-            mode = "tiled" if (jax.default_backend() == "tpu" and not material_on) else False
-        elif mode and material_on:
+    @staticmethod
+    def _choose_solver(cfg: ClothTaskCfg) -> bool:
+        """True = fused kernel, False = XLA solver."""
+        unsupported = []
+        if cfg.restitution > 0.0 or cfg.dynamic_friction_scale > 0.0:
+            unsupported.append("the velocity-pass material (restitution/dynamic_friction_scale)")
+        if cfg.self_collision:
+            unsupported.append("self_collision")
+        if cfg.use_pallas_solver == "auto":
+            return jax.default_backend() == "gpu" and not unsupported
+        if cfg.use_pallas_solver and unsupported:
             raise ValueError(
-                "use_pallas_solver is incompatible with the velocity-pass "
-                "material (restitution/dynamic_friction_scale): the Pallas "
-                "kernels implement the position solve only. Use "
+                f"use_pallas_solver=true is incompatible with {' and '.join(unsupported)}: "
+                "the kernel implements the position solve only. Use "
                 "use_pallas_solver=false (or 'auto')."
             )
-        self.solver_mode = mode
+        return bool(cfg.use_pallas_solver)
 
     def _build_obs_spec(self) -> ObsSpec:
         E = self.obs_edges.shape[0]
@@ -507,12 +497,7 @@ class ClothEnv:
     def _physics(self, scene: SceneState, hanger_pos) -> SceneState:
         cfg = self.cfg
         if self.solver_mode:
-            # Pallas TPU kernels only run natively on TPU; an explicitly
-            # requested Pallas solver on CPU runs in interpret mode (slow,
-            # debugging only) instead of crashing at lowering.
-            return self._physics_pallas(
-                scene, hanger_pos, interpret=jax.default_backend() != "tpu"
-            )
+            return self._physics_pallas(scene, hanger_pos)
         return step_physics(
             scene,
             self.body_spec,
@@ -527,15 +512,16 @@ class ClothEnv:
         )
 
     def _physics_pallas(self, scene: SceneState, hanger_pos, interpret: bool = False) -> SceneState:
-        """Decimation substeps with the fused VMEM position solver.
+        """Decimation substeps with the fused position-solve kernel.
 
         Cloth cubes have rotation fully locked and attach at their center of
         mass, so their rigid dynamics reduce exactly to point-particle
         dynamics: they are appended as pseudo-particles and the whole solve
-        runs in one Pallas kernel per substep."""
-        from ..sim.pallas_cloth import cloth_position_solve, cloth_position_solve_tiled
+        runs in one kernel launch per substep. `interpret` runs the kernel on
+        the CPU (tests only)."""
+        from ..sim.pallas_cloth import cloth_position_solve, pack_groups
 
-        solve = cloth_position_solve_tiled if self.solver_mode == "tiled" else cloth_position_solve
+        groups = pack_groups(self.distance_groups, N_PARTICLES + self.cfg.num_grippers)
         cfg = self.cfg
         B, G = cfg.num_envs, cfg.num_grippers
         dt = cfg.dt
@@ -561,7 +547,7 @@ class ClothEnv:
 
             x = jnp.concatenate([x_p, pos_b], axis=1)
             prev_x = jnp.concatenate([prev_p, prev_b], axis=1)
-            x = solve(
+            x = cloth_position_solve(
                 self.solve_spec,
                 x,
                 prev_x,
@@ -569,11 +555,8 @@ class ClothEnv:
                 hanger_pos,
                 att_body_w,
                 self.corner_indices,
-                self.group_topology,
-                self.group_mask_list,
-                self.self_pair_mask_full,
-                self.self_active_full,
-                interpret,
+                groups,
+                interpret=interpret,
             )
             new_p, new_b = x[:, : x_p.shape[1]], x[:, x_p.shape[1] :]
 

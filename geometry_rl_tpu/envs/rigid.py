@@ -1,6 +1,6 @@
 """Rigid manipulation tasks: pushing, sliding, insertion, two-agent insertion.
 
-TPU-native redesign of `geometry_rl/orbit/tasks/manipulation/rigid_tasks/`:
+JAX redesign of `geometry_rl/orbit/tasks/manipulation/rigid_tasks/`:
 one generic `RigidEnv` parameterized by `RigidTaskCfg` covers all four gym
 registrations (config/factory/__init__.py:36-47). The multi-asset "varying
 shapes" mechanism (sim_utils.py round-robin spawner) is a static shape-id

@@ -1,6 +1,6 @@
 """Rope manipulation tasks: closing (wrap a pole) and shaping (match a curve).
 
-TPU redesign of `geometry_rl/orbit/tasks/manipulation/rope_tasks/`: the
+JAX redesign of `geometry_rl/orbit/tasks/manipulation/rope_tasks/`: the
 articulated PhysX rope (RopeShapeCfg: 40 links / 5 m closing, 80 links / 10 m
 shaping, grippers_cfg.py) becomes an XPBD particle chain with distance
 constraints; the two gripper cubes are rigid bodies welded to the end links by

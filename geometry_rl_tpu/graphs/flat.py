@@ -1,6 +1,6 @@
 """Flat (non-graph) observation pipeline — the MLP agent family's data layer.
 
-TPU equivalent of the reference's flat-MLP builder path
+JAX equivalent of the reference's flat-MLP builder path
 (`examples/torchrl/builders/utils_algo.py:27-203`,
 `_make_trpl_probabilistic_actor` over plain MLP Gaussian policies with
 in_keys=["observation"]): instead of assembling a heterogeneous graph, the

@@ -1,6 +1,6 @@
 """Rigid-task graph builder: observation groups -> HeteroGraph + features.
 
-TPU redesign of `geometry_rl/modules/pyg_data/rigid_tasks_data.py`. The
+JAX redesign of `geometry_rl/modules/pyg_data/rigid_tasks_data.py`. The
 reference rebuilds per-env PyG graphs in a Python loop whenever the batch size
 changes (placeholder cache, `_construct_placeholders:257-343`); here topology
 is STATIC per environment: the kNN graph of a rigid body's mesh points is

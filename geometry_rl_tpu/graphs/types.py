@@ -1,6 +1,6 @@
 """Padded heterogeneous graph batch — the L3 data structure.
 
-TPU-native redesign of the reference's PyG `HeteroData` batches
+JAX redesign of the reference's PyG `HeteroData` batches
 (geometry_rl/modules/pyg_data/base_data.py): instead of per-env Python-built
 graphs coalesced into one ragged batch, every tensor is dense and padded with
 a static shape, vmap/jit-safe:

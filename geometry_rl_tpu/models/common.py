@@ -1,14 +1,15 @@
 """Shared NN building blocks: MLPs, initializers, segment ops.
 
 Replaces the reference's `utils/network_utils.py` (MLP builder + init) with
-Flax equivalents, and torch_scatter with XLA segment ops batched over envs.
+equivalents on the in-repo module layer (models/nn.py), and torch_scatter
+with XLA segment ops batched over envs.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
-import flax.linen as nn
+from . import nn
 import jax
 import jax.numpy as jnp
 
@@ -51,10 +52,9 @@ class MLP(nn.Module):
         return x
 
 
-# Below this node count, gathers/scatters are lowered to one-hot MATMULS:
-# TPU scatter/gather ops serialize badly, while an [E, N] x [N, F] contraction
-# is MXU work. Profiled on v5e (HEPi fwd, 1024 envs): vmapped scatter/gather
-# was 84% of the forward; the matmul path removes almost all of it.
+# Below this node count, gathers/scatters are lowered to one-hot MATMULS
+# (an [E, N] x [N, F] contraction); above it, to vmapped take/segment_sum.
+# Which is faster on the GPU at each node count is not measured yet.
 MATMUL_GATHER_MAX_NODES = 512
 
 

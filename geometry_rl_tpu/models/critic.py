@@ -1,6 +1,6 @@
-"""Value networks (Flax).
+"""Value networks.
 
-TPU redesign of
+JAX redesign of
 `geometry_rl/algorithms/trust_region_projections/models/value/gnn_vf_net.py`
 (graph critic: backbone latent -> Linear -> scalar) and the MLP fallback in
 `examples/torchrl/builders/utils_algo_graph.py:187-198`.
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.types import GraphFeatures, HeteroGraph

@@ -1,6 +1,6 @@
 """DeepSets — the critic backbone in every reference config (deepsets.yaml).
 
-TPU redesign of `geometry_rl/modules/pyg_models/deepsets.py`: inner MLP per
+JAX redesign of `geometry_rl/modules/pyg_models/deepsets.py`: inner MLP per
 node (all node types concatenated, padded nodes masked out of the sum), sum
 pooling, outer MLP. Returns a per-graph latent [B, output_dim]; the value head
 (Linear -> 1) lives in models/critic.py like GNNVFNet.final.
@@ -8,7 +8,7 @@ pooling, outer MLP. Returns a per-graph latent [B, output_dim]; the value head
 
 from __future__ import annotations
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.homogenize import concat_features, homogenize

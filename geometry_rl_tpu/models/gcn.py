@@ -1,6 +1,6 @@
 """GCN baseline: edge-attr-weighted message passing over the merged graph.
 
-TPU redesign of `geometry_rl/modules/pyg_models/gcn.py` +
+JAX redesign of `geometry_rl/modules/pyg_models/gcn.py` +
 `gnn/mpnn.py::ProcessorLayer(update_edge=False)`: message = x_src * edge_attr
 (elementwise, both hidden-dim), scatter-sum, node update x + MLP([x, agg]).
 Edge attrs = [edge-type one-hot | relative displacement | distance] — the
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.homogenize import concat_features, homogenize

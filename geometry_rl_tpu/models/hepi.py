@@ -1,6 +1,6 @@
-"""HEPi — Heterogeneous E(3)-equivariant PONITA policy network (Flax).
+"""HEPi — Heterogeneous E(3)-equivariant PONITA policy network.
 
-TPU redesign of `geometry_rl/modules/pyg_models/hepi.py`: node signals are
+JAX redesign of `geometry_rl/modules/pyg_models/hepi.py`: node signals are
 lifted onto a fixed S2 orientation grid, message passing runs per edge LEVEL
 with a binary per-round schedule (`message_codes`), and the decoder produces
 equivariant vector outputs as orientation-weighted sums.
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Tuple
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.types import GraphFeatures, HeteroGraph
@@ -49,7 +49,7 @@ class HEPi(nn.Module):
     basis_dim: Optional[int] = None
     widening_factor: int = 4
     concat_global: bool = False
-    dtype: jnp.dtype = jnp.float32  # activation/compute dtype (bf16 for TPU)
+    dtype: jnp.dtype = jnp.float32  # activation/compute dtype (bf16 for mixed precision)
 
     @nn.compact
     def __call__(

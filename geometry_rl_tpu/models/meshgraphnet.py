@@ -1,6 +1,6 @@
 """MeshGraphNet-style encode-process-decode GNN.
 
-TPU redesign of `geometry_rl/modules/pyg_models/gnn/{base_gnn,mpnn}.py`:
+JAX redesign of `geometry_rl/modules/pyg_models/gnn/{base_gnn,mpnn}.py`:
 node/edge MLP encoders, N ProcessorLayers with residual EDGE updates
 (mpnn.py update_edge=True: e' = e + MLP([x_dst, x_src, e]); node update
 x' = x + MLP([x, sum_in e'])), and a node decoder read out at the output
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.homogenize import concat_features, homogenize

@@ -1,6 +1,6 @@
-"""Flat-observation MLP agents (Flax) — the non-graph baseline family.
+"""Flat-observation MLP agents — the non-graph baseline family.
 
-TPU redesign of `examples/torchrl/builders/utils_algo.py:27-203`
+JAX redesign of `examples/torchrl/builders/utils_algo.py:27-203`
 (`_make_probabilistic_actor` / `_make_trpl_probabilistic_actor`): a plain MLP
 over the flattened normalized observation with the same diagonal-Gaussian
 head semantics as the graph policies (softplus+shift std, minimal_std —
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..rl.gaussian import DiagGaussian

@@ -1,6 +1,6 @@
-"""Diagonal-Gaussian graph policy heads (Flax).
+"""Diagonal-Gaussian graph policy heads.
 
-TPU redesign of
+JAX redesign of
 `geometry_rl/algorithms/trust_region_projections/models/policy/
 {abstract_gnn_gaussian_policy,gnn_gaussian_policy_diag}.py`:
 
@@ -23,7 +23,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.types import GraphFeatures, HeteroGraph

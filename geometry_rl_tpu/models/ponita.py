@@ -1,9 +1,9 @@
-"""PONITA building blocks in Flax — position-orientation space equivariance.
+"""PONITA building blocks — position-orientation space equivariance.
 
-TPU redesign of `geometry_rl/modules/pyg_models/ponita/{ponita,conv}.py`:
+JAX redesign of `geometry_rl/modules/pyg_models/ponita/{ponita,conv}.py`:
 node signals live on a fixed S2 orientation grid [O, 3]; spatial message
 passing is gather -> elementwise kernel -> batched scatter-add, and the fiber
-(spherical) convolution is a dense einsum over orientations — an MXU matmul.
+(spherical) convolution is a dense einsum over orientations — a matmul.
 All tensors are padded per-env dense arrays [B, N, O, C] (no PyG batching).
 
 Equivariance: features depend on geometry only through the pairwise invariants
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from .common import gather_nodes, scatter_sum
@@ -98,7 +98,7 @@ class FiberBundleConv(nn.Module):
     [B,E,O,A], fiber_basis [O,O,A]) -> updated_dst [B,Nd,O,C]:
 
       1. spatial conv: m_e = kernel(basis_e) * x_src[src_e]; x1 = scatter-add
-      2. fiber conv:   x2 = einsum(x1, fiber_kernel) / O   (dense MXU matmul)
+      2. fiber conv:   x2 = einsum(x1, fiber_kernel) / O   (dense matmul)
       3. ConvNeXt update: dst + MLP(LN(x2 + bias))
     """
 
@@ -120,11 +120,9 @@ class FiberBundleConv(nn.Module):
         kernel = nn.Dense(self.channels, use_bias=False, dtype=self.dtype, name="kernel")(kernel_basis)
 
         # gather -> kernel multiply -> scatter, all in FLATTENED [B,E,O*C]
-        # space: the one-hot matmul lowering wants an f-minor layout, and with
-        # F = O*C = 1024 the elementwise multiply fills TPU lanes in that same
-        # layout. Doing the multiply on the 4D [B,E,O,C] view instead makes
-        # XLA pick a B-minor layout for it (C=64 half-fills lanes) and insert
-        # ~6 ms/grad-step of pure relayout copies (profiled on v5e, mb=1000).
+        # space: the one-hot matmul lowering wants an f-minor layout, and the
+        # elementwise multiply runs in that same layout, so XLA inserts no
+        # relayout copies between them.
         B, E = src.shape
         O, C = x_src.shape[-2], x_src.shape[-1]
         x_j = gather_nodes(x_src.reshape(B, -1, O * C), src)  # [B,E,O*C]

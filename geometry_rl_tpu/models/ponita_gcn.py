@@ -1,6 +1,6 @@
-"""PonitaGCN ("EMPN") — homogeneous PONITA over the merged graph (Flax).
+"""PonitaGCN ("EMPN") — homogeneous PONITA over the merged graph.
 
-TPU redesign of `geometry_rl/modules/pyg_models/ponita_gcn.py`: the hetero
+JAX redesign of `geometry_rl/modules/pyg_models/ponita_gcn.py`: the hetero
 graph is homogenized (node types concatenated, edges offset) and a stack of
 SeparableFiberBundleConvNext layers runs over all nodes; readout happens at
 the output node slice. This is the paper's EMPN baseline
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.homogenize import homogenize

@@ -1,6 +1,6 @@
-"""Set-transformer baseline over all graph nodes (Flax).
+"""Set-transformer baseline over all graph nodes.
 
-TPU redesign of `geometry_rl/modules/pyg_models/transformer_vanilla.py`:
+JAX redesign of `geometry_rl/modules/pyg_models/transformer_vanilla.py`:
 tokens = concatenated flat node features of every node type; a standard
 pre-softmax-scaled multi-head encoder; readout at the output node slice,
 optionally concatenated with a CLS global token. Padded nodes are masked out
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
+from . import nn
 import jax.numpy as jnp
 
 from ..graphs.homogenize import concat_features, homogenize

@@ -1,6 +1,6 @@
 // geomrl_native — host-side native runtime for geometry_rl_tpu.
 //
-// The TPU compute path is JAX/XLA; this library covers the host-side work the
+// The device compute path is JAX/XLA; this library covers the host-side work the
 // reference delegated to native code: graph-topology construction (PyG's C++
 // kNN kernels, rigid_tasks_data.py:285-319) and a native reference solver for
 // the diagonal KL covariance projection (the role ITPAL's cpp_projection

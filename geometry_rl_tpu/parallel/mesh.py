@@ -1,8 +1,8 @@
 """Device-mesh sharding: the env axis is the data-parallel axis.
 
 The reference is single-process/single-GPU (SURVEY.md §2.11) — its only
-parallelism is N PhysX envs in lockstep. TPU-native scaling shards that env
-axis across chips over ICI: every [B, ...] array (scene state, observations,
+parallelism is N PhysX envs in lockstep. Here the env axis shards across
+devices (the cards of a host, joined by NVLink, or of several hosts): every [B, ...] array (scene state, observations,
 rollout batches) is sharded on B; parameters, optimizer state, and normalizer
 stats are replicated. Gradients and metric reductions inside the jitted train
 step become psums that XLA inserts automatically from the sharding
@@ -44,10 +44,10 @@ def _is_env_batched(x: Any, num_envs: int) -> bool:
 def _put_global(x: Any, sharding: NamedSharding):
     """Place one leaf under `sharding`, multi-process aware.
 
-    Single process: plain device_put. Multi-process (pod slice): every
+    Single process: plain device_put. Multi-process: every
     process computes the FULL array identically (same seed, deterministic
     init), so build the global jax.Array from this process's row block —
-    `jax.devices()` orders process 0's chips first, so the env axis maps to
+    `jax.devices()` orders process 0's devices first, so the env axis maps to
     contiguous per-process blocks.
     """
     if jax.process_count() == 1:

@@ -1,17 +1,15 @@
-"""Multi-host (pod-slice) runtime initialization.
+"""Multi-process runtime initialization.
 
 The reference is single-process/single-GPU (SURVEY.md §2.11); scale-out there
-means SLURM array jobs of independent runs (docker/container.sh). TPU-native
-scale-out is ONE SPMD program over every chip of a pod slice: each host runs
-this same CLI, `jax.distributed.initialize` wires the hosts into one runtime,
-and the env axis shards over the GLOBAL device mesh (parallel/mesh.py) so XLA
-collectives ride ICI/DCN.
+means SLURM array jobs of independent runs (docker/container.sh). Here
+scale-out is ONE SPMD program over every card: each process runs this same
+CLI, `jax.distributed.initialize` wires the processes into one runtime, and
+the env axis shards over the GLOBAL device mesh (parallel/mesh.py).
 
-Launch modes:
-- Cloud TPU pod VM (deploy/launch_pod.sh): set GEOMRL_MULTIHOST=1; JAX
-  auto-discovers coordinator/process topology from the TPU metadata.
-- Explicit (CPU/GPU clusters, tests): GEOMRL_COORDINATOR=host:port,
-  GEOMRL_NUM_PROCESSES, GEOMRL_PROCESS_ID.
+A launch sets GEOMRL_COORDINATOR=host:port, GEOMRL_NUM_PROCESSES and
+GEOMRL_PROCESS_ID for every process. All processes run on one host, and each
+owns the card whose index is its process id. On CPU the card binding has no
+effect.
 
 Verified end-to-end on 2 processes x 4 virtual CPU devices with Gloo
 collectives (tests/test_multihost.py): one sharded train_iteration matches
@@ -27,23 +25,22 @@ import jax
 
 def maybe_initialize_distributed() -> bool:
     """Initialize the distributed runtime when this is one process of a
-    multi-host launch; no-op (returns False) for single-process runs.
+    multi-process launch; no-op (returns False) for single-process runs.
 
     MUST run before any JAX computation touches the backend (the local
     backend commits to single-process mode on first use).
     """
     coord = os.environ.get("GEOMRL_COORDINATOR")
-    if coord:
-        jax.distributed.initialize(
-            coordinator_address=coord,
-            num_processes=int(os.environ["GEOMRL_NUM_PROCESSES"]),
-            process_id=int(os.environ["GEOMRL_PROCESS_ID"]),
-        )
-        return True
-    if os.environ.get("GEOMRL_MULTIHOST") == "1":
-        jax.distributed.initialize()  # Cloud TPU: autodetect from metadata
-        return True
-    return False
+    if not coord:
+        return False
+    process_id = int(os.environ["GEOMRL_PROCESS_ID"])
+    jax.distributed.initialize(
+        coordinator_address=coord,
+        num_processes=int(os.environ["GEOMRL_NUM_PROCESSES"]),
+        process_id=process_id,
+        local_device_ids=[process_id],
+    )
+    return True
 
 
 def is_main_process() -> bool:

@@ -3,7 +3,7 @@
 The policy family in the reference is diagonal-Gaussian only
 (`policy_factory.py:28-31` registers just `gnn_diag`); the reference carries
 std as diag-embedded matrices, here distributions are `(mean [..., K],
-std [..., K])` vectors — the natural TPU layout (no diag_embed round-trips).
+std [..., K])` vectors (no diag_embed round-trips).
 
 Closed forms mirror
 `geometry_rl/algorithms/trust_region_projections/models/policy/gnn_gaussian_policy_diag.py:100-137`

@@ -1,6 +1,6 @@
 """Running observation normalizers as explicit pytree state.
 
-TPU-native redesign of the reference's TorchRL transforms
+JAX redesign of the reference's TorchRL transforms
 (geometry_rl/torchrl/envs/transforms.py):
 
 - `VecNorm` — per-dimension decayed running mean/variance (torchrl semantics:
@@ -11,7 +11,7 @@ TPU-native redesign of the reference's TorchRL transforms
   every 3-vector, preserving geometry (a single anisotropic affine map).
 - `MinMaxNorm` (transforms.py:174-370) — running global min/max scaler.
 
-State lives in the train state (checkpointed with Orbax), so the reference's
+State lives in the train state (checkpointed with it), so the reference's
 fragile env-state-dict merge for restoring normalizer stats
 (examples/torchrl/train.py:99-102) disappears by construction. All updates are
 pure: `update(state, x) -> new_state`; `normalize(state, x) -> x_norm` is

@@ -66,7 +66,7 @@ def papi_weight_update(params, intermed_params, eta: jnp.ndarray):
 
 
 # ---------------------------------------------------------------------------
-# `_papi_steps` backtracking (papi_projection.py:151-245), TPU-first redesign
+# `_papi_steps` backtracking (papi_projection.py:151-245), on-device redesign
 # ---------------------------------------------------------------------------
 #
 # The reference keeps a Python list of deep-copied policies and, after PPO's

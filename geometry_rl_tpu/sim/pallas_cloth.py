@@ -1,520 +1,213 @@
-"""Fused XPBD position solver as a Pallas TPU kernel.
+"""Fused cloth position solve: one GPU kernel launch per substep.
 
-The XLA solver (sim/xpbd.py) dispatches each constraint-group solve as its own
-fusion; this kernel runs the ENTIRE position solve per environment inside VMEM
-— one HBM read of the predicted state and one write of the solved state.
+The XLA solver (sim/xpbd.py) runs every constraint group of every solver
+iteration as its own fusions, so one cloth substep is several hundred small
+kernel launches over a few KB of state per env. This kernel runs the whole
+position solve of a substep in one launch through Pallas on the Triton route:
 
-Two kernels: the original one-env-per-program grid (kept as a
-correctness-verified baseline — MEASURED (v5e, 256 envs) 4.8k env-steps/s,
-its 130 tiny [C,PT]x[PT,3] matmuls per env use 3 MXU lanes), and the
-batch-tiled redesign `cloth_position_solve_tiled` with the ENV axis in lanes
-(full-width [C,PT]x[PT,BT] contractions), MEASURED 1.9-2.3x faster than the
-XLA path at flagship sizes. The tiled kernel is the production path on TPU:
-ClothTaskCfg.use_pallas_solver defaults "auto" -> "tiled" on TPU, False
-elsewhere (envs/cloth.py).
+- one program per env; its state is the output buffer (a few KB, resident
+  in L1/L2), read and written in place;
+- a distance pass gathers both endpoints of every constraint of one
+  conflict-free group with indexed loads and stores the corrections back
+  with plain stores (no atomics: no particle appears twice in a group,
+  envs/cloth.py `grid_constraints`; padded lanes all use one spare row);
+  a block barrier separates passes;
+- all arithmetic is elementwise float32 (no dot products), in the order of
+  `_solve_distance_group` / `_solve_attachments` / the particle SDF contact
+  in sim/xpbd.py, so the two solvers agree up to rounding.
 
-Formulation: gripper cubes are appended as pseudo-particles (cloth cubes have
-rotation locked and attach at their center of mass, so their rigid dynamics
-reduce exactly to point dynamics). Constraint math mirrors
-`_solve_distance_group` / `_solve_attachments` / the capsule contact in
-envs/cloth.py bit-for-bit so the golden-trajectory gates stay valid.
+Gripper cubes are appended as pseudo-particles: cloth cubes have rotation
+locked and attach at their center of mass, so their rigid dynamics reduce
+exactly to point dynamics. Self-collision and the velocity-pass material are
+not implemented here; envs/cloth.py keeps those on the XLA solver.
 
-Scatter-backs use constraint->particle one-hot matrices built in-kernel from
-`broadcasted_iota` comparisons against index vectors passed as (grid-shared)
-VMEM operands.
+`interpret=True` runs the kernel on the CPU (tests only): the Pallas
+interpreter executes programs one after another, so the barrier is a no-op
+there.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from .types import ClothSolveSpec
 
 
-class ClothSolveSpec(NamedTuple):
-    """Static solver description (hashable; shapes/constants baked in)."""
-
-    group_sizes: Tuple[int, ...]
-    group_compliance: Tuple[float, ...]
-    num_particles: int  # P (cloth only)
-    num_bodies: int  # G pseudo-particles appended after P
-    iterations: int
-    dt: float
-    hook_radius: float
-    hook_half_len: float
-    hook_friction: float
-    # all-pairs particle self-collision (ParticleSelfContact); 0 = disabled.
-    # When > 0 the kernels take two extra operands: pair_mask [PT, PT]
-    # (zero-padded over the G pseudo-body rows) and a per-env active gate.
-    self_min_dist: float = 0.0
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
-def _one_hot_rows(idx: jnp.ndarray, n: int, dtype) -> jnp.ndarray:
-    """[C] indices -> [C, n] one-hot, built from iota comparisons in-kernel."""
-    cols = jax.lax.broadcasted_iota(jnp.int32, (idx.shape[0], n), 1)
-    return (cols == idx[:, None]).astype(dtype)
+def kernel_rows(num_points: int) -> int:
+    """Rows of the kernel's state planes: a power of two with at least one
+    spare row, which padded constraint lanes read and write."""
+    return _next_pow2(num_points + 1)
 
 
-def _solve_env(
-    spec: ClothSolveSpec, x, prev_x, inv_mass, hanger, att_body_w, att_p, groups,
-    self_pair_mask=None, self_active=None,
-):
-    """Position solve for ONE env: x [PT, 3] f32 (PT = P + G).
+def pack_groups(groups, num_points: int):
+    """Pack distance-constraint groups (each with `i`, `j`, `rest` [C] and
+    `mask` [B, C]) into the kernel's padded layout; num_points: particles +
+    pseudo-particles. Returns (i [NG, CP] int32, j, rest [NG, CP] f32,
+    mask [B, NG, CP] f32) with NG and CP padded to powers of two. Padded
+    lanes point both ends at the spare last row with mask 0, so their stores
+    change nothing a real constraint reads or writes."""
+    ng = _next_pow2(len(groups))
+    cp = _next_pow2(max(int(g.i.shape[0]) for g in groups))
+    spare = kernel_rows(num_points) - 1
 
-    groups: list of (i_idx [C], j_idx [C], rest [C], mask [C]) arrays.
-    self_pair_mask [PT, PT] / self_active [PT]: all-pairs self-collision
-    gates (only when spec.self_min_dist > 0).
-    """
-    PT = spec.num_particles + spec.num_bodies
-    dt2 = spec.dt * spec.dt
-    att_b = spec.num_particles + jnp.arange(spec.num_bodies, dtype=jnp.int32)
+    def pad(arrs, dtype, fill, lead=()):
+        out = jnp.full(lead + (ng, cp), fill, dtype)
+        for g, a in enumerate(arrs):
+            out = out.at[..., g, : a.shape[-1]].set(a.astype(dtype))
+        return out
 
-    # contact only applies to cloth particles (pseudo-bodies have none)
-    row = jax.lax.broadcasted_iota(jnp.int32, (PT, 1), 0)[:, 0]
-    contact_mask = (row < spec.num_particles).astype(jnp.float32)[:, None]
-
-    def distance_pass(x, i_idx, j_idx, rest, mask, compliance):
-        oh_i = _one_hot_rows(i_idx, PT, x.dtype)  # [C, PT]
-        oh_j = _one_hot_rows(j_idx, PT, x.dtype)
-        xi = jnp.dot(oh_i, x, preferred_element_type=jnp.float32)  # [C, 3]
-        xj = jnp.dot(oh_j, x, preferred_element_type=jnp.float32)
-        wi = jnp.dot(oh_i, inv_mass[:, None], preferred_element_type=jnp.float32)[:, 0]
-        wj = jnp.dot(oh_j, inv_mass[:, None], preferred_element_type=jnp.float32)[:, 0]
-
-        d = xi - xj
-        dist = jnp.sqrt(jnp.sum(d * d, axis=-1))
-        n = d / jnp.maximum(dist, 1e-9)[:, None]
-        c = dist - rest
-        alpha = compliance / dt2
-        lam = -c / jnp.maximum(wi + wj + alpha, 1e-12) * mask
-        dx = lam[:, None] * n
-        x = x + jnp.dot(oh_i.T, dx * wi[:, None], preferred_element_type=jnp.float32)
-        x = x - jnp.dot(oh_j.T, dx * wj[:, None], preferred_element_type=jnp.float32)
-        return x
-
-    def attachment_pass(x):
-        # rest-0 distance constraints corner particle <-> cube pseudo-particle,
-        # matching _solve_attachments with local_pos 0 and locked rotation
-        oh_p = _one_hot_rows(att_p, PT, x.dtype)
-        oh_b = _one_hot_rows(att_b, PT, x.dtype)
-        xp = jnp.dot(oh_p, x, preferred_element_type=jnp.float32)
-        xb = jnp.dot(oh_b, x, preferred_element_type=jnp.float32)
-        wp = jnp.dot(oh_p, inv_mass[:, None], preferred_element_type=jnp.float32)[:, 0]
-        wb = att_body_w
-
-        c = xp - xb
-        c_norm = jnp.sqrt(jnp.sum(c * c, axis=-1, keepdims=True))
-        n = c / jnp.maximum(c_norm, 1e-9)
-        lam = -c_norm[:, 0] / jnp.maximum(wp + wb, 1e-12)
-        dx = lam[:, None] * n
-        x = x + jnp.dot(oh_p.T, dx * wp[:, None], preferred_element_type=jnp.float32)
-        x = x - jnp.dot(oh_b.T, dx * wb[:, None], preferred_element_type=jnp.float32)
-        return x
-
-    def contact_pass(x):
-        # capsule along +y from the hanger origin (envs/cloth.py hook_sdf)
-        rel = x - hanger[None, :]
-        y = jnp.clip(rel[:, 1], 0.0, 2 * spec.hook_half_len)
-        d = rel - jnp.stack([jnp.zeros_like(y), y, jnp.zeros_like(y)], axis=-1)
-        dist = jnp.sqrt(jnp.sum(d * d, axis=-1))
-        phi = dist - spec.hook_radius
-        n = d / jnp.maximum(dist, 1e-9)[:, None]
-        pen = jnp.minimum(phi, 0.0)
-        dx_n = -pen[:, None] * n
-        disp = x - prev_x
-        disp_t = disp - jnp.sum(disp * n, axis=-1, keepdims=True) * n
-        t_norm = jnp.sqrt(jnp.sum(disp_t * disp_t, axis=-1, keepdims=True))
-        scale = jnp.minimum(1.0, spec.hook_friction * (-pen[:, None]) / jnp.maximum(t_norm, 1e-9))
-        active = (phi < 0.0).astype(x.dtype)[:, None] * contact_mask
-        return x + active * (dx_n - scale * disp_t)
-
-    def self_pass(x):
-        # mirrors _solve_self_contacts (sim/xpbd.py) for one env; pseudo-body
-        # rows carry pair_mask 0 so only cloth particles interact
-        d = x[:, None, :] - x[None, :, :]  # [PT, PT, 3]
-        dist = jnp.sqrt(jnp.sum((d + 1e-12) ** 2, axis=-1))
-        pair_w = inv_mass[:, None] + inv_mass[None, :]
-        viol = jnp.maximum(spec.self_min_dist - dist, 0.0) * self_pair_mask
-        viol = viol * self_active[:, None] * self_active[None, :]
-        n = d / jnp.maximum(dist, 1e-9)[..., None]
-        corr = viol / jnp.maximum(pair_w, 1e-12) * inv_mass[:, None]
-        counts = jnp.maximum((viol > 0).astype(x.dtype).sum(axis=-1), 1.0)
-        dx = jnp.sum(corr[..., None] * n, axis=1) / counts[:, None]
-        return x + dx
-
-    def iteration(_, x):
-        for g, (i_idx, j_idx, rest, mask) in enumerate(groups):
-            x = distance_pass(x, i_idx, j_idx, rest, mask, spec.group_compliance[g])
-        if spec.self_min_dist > 0.0:
-            x = self_pass(x)
-        x = attachment_pass(x)
-        x = contact_pass(x)
-        return x
-
-    return jax.lax.fori_loop(0, spec.iterations, iteration, x)
-
-
-def _kernel(spec: ClothSolveSpec, refs):
-    """refs layout: x, prev, inv_mass, hanger, bw, att_p,
-    then per group (i, j, rest, mask), then [pair_mask, active] when
-    self-collision is enabled, then out."""
-    n_g = len(spec.group_sizes)
-    x_ref, prev_ref, w_ref, hanger_ref, bw_ref, attp_ref = refs[:6]
-    group_refs = refs[6 : 6 + 4 * n_g]
-    rest = refs[6 + 4 * n_g :]
-    if spec.self_min_dist > 0.0:
-        pm_ref, act_ref, out_ref = rest
-        self_pm, self_act = pm_ref[:], act_ref[0, :, 0]
-    else:
-        (out_ref,) = rest
-        self_pm = self_act = None
-
-    groups = []
-    for g in range(n_g):
-        i_ref, j_ref, r_ref, m_ref = group_refs[4 * g : 4 * g + 4]
-        groups.append((i_ref[:], j_ref[:], r_ref[:], m_ref[0, :, 0]))
-
-    out_ref[0] = _solve_env(
-        spec,
-        x_ref[0],
-        prev_ref[0],
-        w_ref[0, :, 0],
-        hanger_ref[0, :, 0],
-        bw_ref[0, :, 0],
-        attp_ref[:],
-        groups,
-        self_pm,
-        self_act,
+    B = groups[0].mask.shape[0]
+    return (
+        pad([g.i for g in groups], jnp.int32, spare),
+        pad([g.j for g in groups], jnp.int32, spare),
+        pad([g.rest for g in groups], jnp.float32, 0.0),
+        pad([g.mask for g in groups], jnp.float32, 0.0, (B,)),
     )
 
 
-# ---------------------------------------------------------------------------
-# Batch-tiled redesign: envs in LANES
-# ---------------------------------------------------------------------------
-
-
-def _solve_tile(
-    spec: ClothSolveSpec, xs, prevs, W, hanger, bw, att_p, groups,
-    self_pair_mask=None, self_active=None,
-):
-    """Position solve for a TILE of envs, coordinates unrolled.
-
-    xs/prevs: 3-tuple of [PT, BT] (x/y/z planes); W: [PT, BT] inverse masses;
-    hanger: [3, BT]; bw: [G, BT]; groups: (i_idx [C], j_idx [C], rest [C],
-    mask [C, BT]) per conflict-free group. self_pair_mask [PT, PT] /
-    self_active [PT, BT] gate the all-pairs self-collision pass.
-
-    Every gather/scatter is a [C, PT] x [PT, BT] (resp. [PT, C] x [C, BT])
-    matmul with the env tile in lanes — full-width MXU instead of the 3-lane
-    contractions of the one-env-per-program kernel above.
-    """
-    PT = spec.num_particles + spec.num_bodies
+def _kernel(spec: ClothSolveSpec, interpret: bool, x_ref, prev_ref, w_ref, hanger_ref, bw_ref, attp_ref,
+            gi_ref, gj_ref, grest_ref, gmask_ref, o_ref):
+    P, G = spec.num_particles, spec.num_bodies
+    PTp = o_ref.shape[-1]
     dt2 = spec.dt * spec.dt
+    barrier = (lambda: None) if interpret else plgpu.debug_barrier
 
-    # hoisted per-group constants: one-hots and endpoint inverse masses
-    dgroups = []
-    for g, (i_idx, j_idx, rest, mask) in enumerate(groups):
-        oh_i = _one_hot_rows(i_idx, PT, W.dtype)  # [C, PT]
-        oh_j = _one_hot_rows(j_idx, PT, W.dtype)
-        wi = jnp.dot(oh_i, W, preferred_element_type=jnp.float32)  # [C, BT]
-        wj = jnp.dot(oh_j, W, preferred_element_type=jnp.float32)
-        denom = jnp.maximum(wi + wj + spec.group_compliance[g] / dt2, 1e-12)
-        dgroups.append((oh_i, oh_j, rest[:, None], mask, wi, wj, denom))
+    for k in range(3):
+        o_ref[k, :] = x_ref[k, :]
+    barrier()
 
-    att_b = spec.num_particles + jnp.arange(spec.num_bodies, dtype=jnp.int32)
-    oh_p = _one_hot_rows(att_p, PT, W.dtype)  # [G, PT]
-    oh_b = _one_hot_rows(att_b, PT, W.dtype)
-    wp = jnp.dot(oh_p, W, preferred_element_type=jnp.float32)  # [G, BT]
-    att_denom = jnp.maximum(wp + bw, 1e-12)
+    is_cloth = jnp.arange(PTp, dtype=jnp.int32) < P
+    att_p = attp_ref[:]
+    att_b = P + jnp.arange(G, dtype=jnp.int32)
+    bw = bw_ref[:]
+    h = [hanger_ref[k] for k in range(3)]
 
-    row = jax.lax.broadcasted_iota(jnp.int32, (PT, 1), 0)
-    contact_mask = (row < spec.num_particles).astype(jnp.float32)  # [PT, 1]
-
-    def gather3(oh, xs):
-        return tuple(jnp.dot(oh, x, preferred_element_type=jnp.float32) for x in xs)
-
-    def distance_pass(xs, oh_i, oh_j, rest, mask, wi, wj, denom):
-        xi = gather3(oh_i, xs)  # 3 x [C, BT]
-        xj = gather3(oh_j, xs)
-        d = tuple(a - b for a, b in zip(xi, xj))
+    def distance_pass(g):
+        i, j = gi_ref[g, :], gj_ref[g, :]
+        wi, wj = w_ref[i], w_ref[j]
+        xi = [o_ref[k, i] for k in range(3)]
+        xj = [o_ref[k, j] for k in range(3)]
+        d = [a - b for a, b in zip(xi, xj)]
         dist = jnp.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-        inv = 1.0 / jnp.maximum(dist, 1e-9)
-        lam = -(dist - rest) * mask / denom  # [C, BT]
-        li, lj = lam * wi * inv, lam * wj * inv
-        return tuple(
-            x
-            + jnp.dot(oh_i.T, li * dk, preferred_element_type=jnp.float32)
-            - jnp.dot(oh_j.T, lj * dk, preferred_element_type=jnp.float32)
-            for x, dk in zip(xs, d)
-        )
+        alpha = spec.group_compliance[g] / dt2
+        lam = -(dist - grest_ref[g, :]) / jnp.maximum(wi + wj + alpha, 1e-12) * gmask_ref[g, :]
+        safe = jnp.maximum(dist, 1e-9)
+        for k in range(3):
+            dx = lam * (d[k] / safe)
+            o_ref[k, i] = xi[k] + dx * wi
+            o_ref[k, j] = xj[k] - dx * wj
+        barrier()
 
-    def attachment_pass(xs):
-        xp = gather3(oh_p, xs)
-        xb = gather3(oh_b, xs)
-        c = tuple(a - b for a, b in zip(xp, xb))
+    def attachment_pass():
+        wp = w_ref[att_p]
+        xp = [o_ref[k, att_p] for k in range(3)]
+        xb = [o_ref[k, att_b] for k in range(3)]
+        c = [a - b for a, b in zip(xp, xb)]
         c_norm = jnp.sqrt(c[0] * c[0] + c[1] * c[1] + c[2] * c[2])
-        inv = 1.0 / jnp.maximum(c_norm, 1e-9)
-        lam = -c_norm / att_denom
-        lp, lb = lam * wp * inv, lam * bw * inv
-        return tuple(
-            x
-            + jnp.dot(oh_p.T, lp * ck, preferred_element_type=jnp.float32)
-            - jnp.dot(oh_b.T, lb * ck, preferred_element_type=jnp.float32)
-            for x, ck in zip(xs, c)
-        )
+        safe = jnp.maximum(c_norm, 1e-9)
+        lam = -c_norm / jnp.maximum(wp + bw, 1e-12)
+        for k in range(3):
+            dx = lam * (c[k] / safe)
+            o_ref[k, att_p] = xp[k] + dx * wp
+            o_ref[k, att_b] = xb[k] - dx * bw
+        barrier()
 
-    def contact_pass(xs):
-        h = tuple(hanger[k][None, :] for k in range(3))  # [1, BT]
-        rel1 = xs[1] - h[1]
-        y = jnp.clip(rel1, 0.0, 2 * spec.hook_half_len)
-        d = (xs[0] - h[0], rel1 - y, xs[2] - h[2])  # [PT, BT]
+    def contact_pass():
+        x = [o_ref[k, :] for k in range(3)]
+        rel = [x[k] - h[k] for k in range(3)]
+        y = jnp.clip(rel[1], 0.0, 2 * spec.hook_half_len)
+        d = [rel[0], rel[1] - y, rel[2]]
         dist = jnp.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-        inv = 1.0 / jnp.maximum(dist, 1e-9)
-        n = tuple(dk * inv for dk in d)
         phi = dist - spec.hook_radius
+        safe = jnp.maximum(dist, 1e-9)
+        n = [dk / safe for dk in d]
         pen = jnp.minimum(phi, 0.0)
-        disp = tuple(x - p for x, p in zip(xs, prevs))
+        disp = [x[k] - prev_ref[k, :] for k in range(3)]
         dot = disp[0] * n[0] + disp[1] * n[1] + disp[2] * n[2]
-        disp_t = tuple(dk - dot * nk for dk, nk in zip(disp, n))
-        t_norm = jnp.sqrt(disp_t[0] ** 2 + disp_t[1] ** 2 + disp_t[2] ** 2)
+        disp_t = [disp[k] - dot * n[k] for k in range(3)]
+        t_norm = jnp.sqrt(disp_t[0] * disp_t[0] + disp_t[1] * disp_t[1] + disp_t[2] * disp_t[2])
         scale = jnp.minimum(1.0, spec.hook_friction * (-pen) / jnp.maximum(t_norm, 1e-9))
-        active = (phi < 0.0).astype(xs[0].dtype) * contact_mask
-        return tuple(
-            x + active * (-pen * nk - scale * tk) for x, nk, tk in zip(xs, n, disp_t)
-        )
+        active = jnp.where((phi < 0.0) & is_cloth, 1.0, 0.0)
+        for k in range(3):
+            o_ref[k, :] = x[k] + active * (-pen * n[k] - scale * disp_t[k])
+        barrier()
 
-    def self_pass(xs):
-        # all-pairs self-collision with envs in lanes: the [PT, PT, BT]
-        # pairwise tensor is too large for VMEM at BT=128, so sweep the i
-        # axis in sublane chunks of 8 (~1 MB transients per chunk). The sweep
-        # is a fori_loop, NOT a Python unroll: Mosaic stack-allocates the
-        # transients of every unrolled chunk cumulatively (29 chunks x ~2 MB
-        # blew the 16 MB scoped-vmem limit on real TPU); a loop body reuses
-        # one chunk's worth of stack. The i axis is zero-padded to a multiple
-        # of 8 so every dynamic slice is sublane-aligned; padded rows have
-        # pair_mask == 0 and are dropped on write-back. Mirrors
-        # _solve_self_contacts.
-        CI = 8
-        pad = (-PT) % CI
-        PTp = PT + pad
-        xp = tuple(jnp.pad(x, ((0, pad), (0, 0))) for x in xs)  # [PTp, BT]
-        Wp = jnp.pad(W, ((0, pad), (0, 0)))
-        pmp = jnp.pad(self_pair_mask, ((0, pad), (0, 0)))  # [PTp, PT]
-        actp = jnp.pad(self_active, ((0, pad), (0, 0)))  # [PTp, BT]
-        row_of_chunk = jax.lax.broadcasted_iota(jnp.int32, (CI, PTp), 0)
-        col = jax.lax.broadcasted_iota(jnp.int32, (CI, PTp), 1)
+    def iteration(_, carry):
+        for g in range(len(spec.group_compliance)):
+            distance_pass(g)
+        attachment_pass()
+        contact_pass()
+        return carry
 
-        def chunk(c, acc):
-            # Mosaic has no dynamic_slice on values: gather chunk rows with a
-            # loop-index-dependent one-hot matmul, scatter-add with its
-            # transpose (chunks write disjoint rows).
-            sel = (col == c * CI + row_of_chunk).astype(W.dtype)  # [CI, PTp]
-            g = lambda a: jnp.dot(sel, a, preferred_element_type=jnp.float32)
-            xi = tuple(g(x) for x in xp)  # [CI, BT]
-            d = tuple(a[:, None, :] - b[None, :, :] for a, b in zip(xi, xs))  # [CI, PT, BT]
-            dist = jnp.sqrt(sum((dk + 1e-12) ** 2 for dk in d))
-            wi = g(Wp)[:, None, :]
-            pair_w = wi + W[None, :, :]
-            viol = jnp.maximum(spec.self_min_dist - dist, 0.0) * g(pmp)[:, :, None]
-            viol = viol * g(actp)[:, None, :] * self_active[None, :, :]
-            inv = 1.0 / jnp.maximum(dist, 1e-9)
-            corr = viol / jnp.maximum(pair_w, 1e-12) * wi  # [CI, PT, BT]
-            counts = jnp.maximum((viol > 0).astype(W.dtype).sum(axis=1), 1.0)  # [CI, BT]
-            scaled = corr * inv
-            dxc = tuple((scaled * dk).sum(axis=1) / counts for dk in d)  # [CI, BT]
-            return tuple(
-                a + jnp.dot(sel.T, v, preferred_element_type=jnp.float32)
-                for a, v in zip(acc, dxc)
-            )
-
-        acc = jax.lax.fori_loop(
-            0, PTp // CI, chunk, tuple(jnp.zeros_like(x) for x in xp)
-        )
-        return tuple(x + a[:PT] for x, a in zip(xs, acc))
-
-    def iteration(_, xs):
-        for dg in dgroups:
-            xs = distance_pass(xs, *dg)
-        if spec.self_min_dist > 0.0:
-            xs = self_pass(xs)
-        xs = attachment_pass(xs)
-        xs = contact_pass(xs)
-        return xs
-
-    return jax.lax.fori_loop(0, spec.iterations, iteration, xs)
+    jax.lax.fori_loop(0, spec.iterations, iteration, 0)
 
 
-def _kernel_tiled(spec: ClothSolveSpec, refs):
-    n_g = len(spec.group_sizes)
-    x_ref, prev_ref, w_ref, hanger_ref, bw_ref, attp_ref = refs[:6]
-    group_refs = refs[6 : 6 + 4 * n_g]
-    rest = refs[6 + 4 * n_g :]
-    if spec.self_min_dist > 0.0:
-        pm_ref, act_ref, out_ref = rest
-        self_pm, self_act = pm_ref[:], act_ref[:]
-    else:
-        (out_ref,) = rest
-        self_pm = self_act = None
-
-    groups = []
-    for g in range(n_g):
-        i_ref, j_ref, r_ref, m_ref = group_refs[4 * g : 4 * g + 4]
-        groups.append((i_ref[:], j_ref[:], r_ref[:], m_ref[:]))
-
-    xall, pall = x_ref[:], prev_ref[:]
-    xs = _solve_tile(
-        spec,
-        (xall[0], xall[1], xall[2]),
-        (pall[0], pall[1], pall[2]),
-        w_ref[:],
-        hanger_ref[:],
-        bw_ref[:],
-        attp_ref[:],
-        groups,
-        self_pm,
-        self_act,
-    )
-    out_ref[:] = jnp.stack(xs)
-
-
-@partial(jax.jit, static_argnums=(0, 11))
-def cloth_position_solve_tiled(
-    spec: ClothSolveSpec,
-    x: jnp.ndarray,  # [B, PT, 3]
-    prev_x: jnp.ndarray,  # [B, PT, 3]
-    inv_mass: jnp.ndarray,  # [B, PT]
-    hanger: jnp.ndarray,  # [B, 3]
-    att_body_w: jnp.ndarray,  # [B, G]
-    att_particle: jnp.ndarray,  # [G] int32
-    group_topology: Sequence[jnp.ndarray],
-    group_masks: Sequence[jnp.ndarray],  # per group [B, C]
-    self_pair_mask: jnp.ndarray = None,  # [PT, PT] (self_min_dist > 0 only)
-    self_active: jnp.ndarray = None,  # [B, PT]
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Batch-tiled variant of `cloth_position_solve`: grid over tiles of
-    BT = 128 envs (or one full tile when B < 128), all state transposed so the
-    ENV axis sits in lanes. Same math, same operands — different layout."""
-    B, PT, _ = x.shape
-    n_g = len(spec.group_sizes)
-    assert len(group_topology) == 3 * n_g and len(group_masks) == n_g
-    BT = 128 if B % 128 == 0 else B
-
-    xT = jnp.transpose(x, (2, 1, 0))  # [3, PT, B]
-    prevT = jnp.transpose(prev_x, (2, 1, 0))
-    wT = inv_mass.T  # [PT, B]
-    hangerT = hanger.T  # [3, B]
-    bwT = att_body_w.T  # [G, B]
-    masksT = [m.T for m in group_masks]  # [C, B]
-
-    def tiled(shape):  # env axis last, tiled over the grid
-        nd = len(shape)
-        return pl.BlockSpec(shape[:-1] + (BT,), lambda b: (0,) * (nd - 1) + (b,), memory_space=pltpu.VMEM)
-
-    def shared(shape):
-        nd = len(shape)
-        return pl.BlockSpec(shape, lambda b: (0,) * nd, memory_space=pltpu.VMEM)
-
-    in_specs = [
-        tiled((3, PT, B)),  # x
-        tiled((3, PT, B)),  # prev
-        tiled((PT, B)),  # inv mass
-        tiled((3, B)),  # hanger
-        tiled((att_body_w.shape[1], B)),  # body w
-        shared((att_particle.shape[0],)),
-    ]
-    operands = [xT, prevT, wT, hangerT, bwT, att_particle]
-    for g in range(n_g):
-        i_arr, j_arr, r_arr = group_topology[3 * g : 3 * g + 3]
-        in_specs += [shared(i_arr.shape), shared(j_arr.shape), shared(r_arr.shape), tiled(masksT[g].shape)]
-        operands += [i_arr, j_arr, r_arr, masksT[g]]
-    if spec.self_min_dist > 0.0:
-        assert self_pair_mask is not None and self_active is not None
-        actT = self_active.T  # [PT, B]
-        in_specs += [shared(self_pair_mask.shape), tiled((PT, B))]
-        operands += [self_pair_mask, actT]
-
-    def kernel(*refs):
-        _kernel_tiled(spec, refs)
-
-    outT = pl.pallas_call(
-        kernel,
-        grid=(B // BT,),
-        in_specs=in_specs,
-        out_specs=tiled((3, PT, B)),
-        out_shape=jax.ShapeDtypeStruct((3, PT, B), x.dtype),
-        interpret=interpret,
-    )(*operands)
-    return jnp.transpose(outT, (2, 1, 0))
-
-
-@partial(jax.jit, static_argnums=(0, 11))
+@partial(jax.jit, static_argnames=("spec", "interpret"))
 def cloth_position_solve(
     spec: ClothSolveSpec,
-    x: jnp.ndarray,  # [B, PT, 3] predicted positions (cloth + cube pseudo-particles)
-    prev_x: jnp.ndarray,  # [B, PT, 3]
+    x: jnp.ndarray,  # [B, PT, 3] predicted positions (cloth + gripper pseudo-particles)
+    prev_x: jnp.ndarray,  # [B, PT, 3] positions at the start of the substep
     inv_mass: jnp.ndarray,  # [B, PT]
     hanger: jnp.ndarray,  # [B, 3]
-    att_body_w: jnp.ndarray,  # [B, G] generalized inv mass of attachment bodies
+    att_body_w: jnp.ndarray,  # [B, G] inverse mass of the attached bodies
     att_particle: jnp.ndarray,  # [G] int32 corner particle indices
-    group_topology: Sequence[jnp.ndarray],  # per group: i [C], j [C], rest [C] interleaved
-    group_masks: Sequence[jnp.ndarray],  # per group [B, C]
-    self_pair_mask: jnp.ndarray = None,  # [PT, PT] (self_min_dist > 0 only)
-    self_active: jnp.ndarray = None,  # [B, PT]
+    packed_groups,  # pack_groups(...) output
+    *,
     interpret: bool = False,
 ) -> jnp.ndarray:
+    """Solved positions [B, PT, 3] after `spec.iterations` solver iterations."""
     B, PT, _ = x.shape
-    n_g = len(spec.group_sizes)
-    assert len(group_topology) == 3 * n_g and len(group_masks) == n_g
+    G = att_body_w.shape[1]
+    PTp = kernel_rows(PT)
+    gi, gj, grest, gmask = packed_groups
+    ng, cp = gi.shape
 
-    def shared(shape):  # grid-independent operand
-        nd = len(shape)
-        return pl.BlockSpec(shape, lambda b: (0,) * nd, memory_space=pltpu.VMEM)
+    def planes(a):  # [B, PT, 3] -> [B, 4, PTp]: coordinate planes, padded
+        return jnp.pad(jnp.transpose(a, (0, 2, 1)), ((0, 0), (0, 1), (0, PTp - PT)))
 
-    def batched(shape):
-        nd = len(shape)
-        return pl.BlockSpec((1,) + shape, lambda b: (b,) + (0,) * nd, memory_space=pltpu.VMEM)
-
-    # Mosaic requires a block's last two dims to be 8/128-divisible OR equal
-    # to the full array dims. Per-env 2-D operands [B, n] would block as
-    # (1, n) — sublane 1 is neither. Reshape them to [B, n, 1]: the trailing
-    # (n, 1) dims then both equal the full array dims.
-    inv_mass3 = inv_mass[..., None]
-    hanger3 = hanger[..., None]
-    att_body_w3 = att_body_w[..., None]
-    group_masks3 = [m[..., None] for m in group_masks]
-
-    in_specs = [
-        batched((PT, 3)),  # x
-        batched((PT, 3)),  # prev
-        batched((PT, 1)),  # inv_mass
-        batched((3, 1)),  # hanger
-        batched((att_body_w.shape[1], 1)),  # body w
-        shared((att_particle.shape[0],)),  # att particle idx
-    ]
-    operands = [x, prev_x, inv_mass3, hanger3, att_body_w3, att_particle]
-    for g in range(n_g):
-        i_arr, j_arr, r_arr = group_topology[3 * g : 3 * g + 3]
-        m_arr = group_masks3[g]
-        in_specs += [shared(i_arr.shape), shared(j_arr.shape), shared(r_arr.shape), batched((m_arr.shape[1], 1))]
-        operands += [i_arr, j_arr, r_arr, m_arr]
-    if spec.self_min_dist > 0.0:
-        assert self_pair_mask is not None and self_active is not None
-        in_specs += [shared(self_pair_mask.shape), batched((PT, 1))]
-        operands += [self_pair_mask, self_active[..., None]]
-
-    def kernel(*refs):
-        _kernel(spec, refs)
-
-    return pl.pallas_call(
-        kernel,
+    operands = (
+        planes(x),
+        planes(prev_x),
+        jnp.pad(inv_mass, ((0, 0), (0, PTp - PT))),
+        jnp.pad(hanger, ((0, 0), (0, 1))),
+        att_body_w,
+        att_particle.astype(jnp.int32),
+        gi,
+        gj,
+        grest,
+        gmask,
+    )
+    per_env = lambda *shape: pl.BlockSpec((None,) + shape, lambda b: (b,) + (0,) * len(shape))
+    shared = lambda *shape: pl.BlockSpec(shape, lambda b: (0,) * len(shape))
+    out = pl.pallas_call(
+        partial(_kernel, spec, interpret),
         grid=(B,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((1, PT, 3), lambda b: (b, 0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B, PT, 3), x.dtype),
+        in_specs=[
+            per_env(4, PTp),
+            per_env(4, PTp),
+            per_env(PTp),
+            per_env(4),
+            per_env(G),
+            shared(G),
+            shared(ng, cp),
+            shared(ng, cp),
+            shared(ng, cp),
+            per_env(ng, cp),
+        ],
+        out_specs=per_env(4, PTp),
+        out_shape=jax.ShapeDtypeStruct((B, 4, PTp), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
+        name="cloth_position_solve",
     )(*operands)
+    return jnp.transpose(out[:, :3, :PT], (0, 2, 1))

@@ -300,9 +300,8 @@ def polygon_sdf_grad_2d(q: jnp.ndarray, verts: jnp.ndarray) -> Tuple[jnp.ndarray
     closest = a + t[..., None] * e  # [..., K, 2]
     diff = qe - closest
     d2 = jnp.sum(diff * diff, axis=-1)
-    # select the closest point WITHOUT argmin+gather (dynamic gathers
-    # serialize on TPU): reduce to the min then average the (usually unique)
-    # minimizers via a mask
+    # select the closest point without argmin+gather: reduce to the min then
+    # average the (usually unique) minimizers via a mask
     d2_min = jnp.min(d2, axis=-1, keepdims=True)
     dist = jnp.sqrt(d2_min[..., 0])
     sel = (d2 <= d2_min + 1e-12).astype(q.dtype)

@@ -1,8 +1,8 @@
-"""Scene state and specs for the batched TPU simulator.
+"""Scene state and specs for the batched simulator.
 
 This module replaces the Isaac Sim / geometry_orbit physics backend
 (SURVEY.md §2.10) with explicit pytree state that `vmap`s over environments
-and `shard_map`s over a TPU mesh. Conventions:
+and shard over a device mesh. Conventions:
 
 - All state arrays carry a leading env axis B. Bodies/particles within an env
   are a second static axis.
@@ -100,3 +100,17 @@ def box_inertia(mass: float, size) -> jnp.ndarray:
         ],
         dtype=jnp.float32,
     )
+
+
+class ClothSolveSpec(NamedTuple):
+    """Static description of the cloth position solve (hashable; shapes and
+    constants baked into the fused kernel, sim/pallas_cloth.py)."""
+
+    group_compliance: tuple  # one compliance per conflict-free distance group
+    num_particles: int  # P (cloth only)
+    num_bodies: int  # G gripper pseudo-particles appended after P
+    iterations: int
+    dt: float
+    hook_radius: float
+    hook_half_len: float
+    hook_friction: float

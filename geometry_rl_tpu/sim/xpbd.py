@@ -5,7 +5,7 @@ task (SURVEY.md §2.10): rigid assemblies (peg + suction gripper welded by
 fixed joints, driven by root-velocity commands), XPBD particle systems (cloth,
 rope), attachments (particle<->body), and point-vs-SDF contact with Coulomb
 friction. Everything is a pure function of (state, specs) with static shapes:
-`vmap` over envs, `lax.scan` over substeps, `shard_map` over the TPU mesh.
+`vmap` over envs, `lax.scan` over substeps, sharded over the device mesh.
 
 Solver scheme per substep (Müller et al., "Detailed Rigid Body Simulation
 with XPBD", 2020):
@@ -34,6 +34,12 @@ from .types import FixedJointSpec, ParticleState, RigidBodySpec, RigidBodyState,
 
 GRAVITY_MAG = 9.81
 GRAVITY = jnp.array([0.0, 0.0, -GRAVITY_MAG], dtype=jnp.float32)
+
+# Every float32 contraction of the solver runs at full precision: a GPU
+# otherwise lowers f32 matmuls to TF32 (10 mantissa bits), which would round
+# positions inside the one-hot scatters.
+_HIGHEST = jax.lax.Precision.HIGHEST
+_einsum = partial(jnp.einsum, precision=_HIGHEST)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +137,7 @@ class ParticleSpec(NamedTuple):
 class ParticleSelfContact(NamedTuple):
     """All-pairs particle self-collision (PhysX particle-cloth
     `particle_contact_offset` semantics): any non-excluded pair is pushed
-    apart to `min_dist`. Dense [NP, NP] work — lowers to MXU-friendly
+    apart to `min_dist`. Dense [NP, NP] work — lowers to
     batched matmuls/broadcasts, NO scatter (NP is small: cloth 225).
 
     pair_mask: [NP, NP] static 0/1, excludes self + topologically-constrained
@@ -195,7 +201,7 @@ def _gyroscopic_step(quat: jnp.ndarray, w: jnp.ndarray, inv_inertia: jnp.ndarray
 
     f = dt * jnp.cross(wb, iw)
     eye = jnp.eye(3, dtype=w.dtype)
-    J = ib[..., None] * eye + dt * (skew(wb) @ (ib[..., :, None] * eye) - skew(iw))
+    J = ib[..., None] * eye + dt * (jnp.matmul(skew(wb), ib[..., :, None] * eye, precision=_HIGHEST) - skew(iw))
     dwb = jnp.linalg.solve(J, f[..., None])[..., 0]
     wb1 = jnp.where(valid[..., None], wb - dwb, wb)
     return quat_apply(quat, wb1)
@@ -252,7 +258,7 @@ def _solve_fixed_joints(
     def scatter(vals, idx):
         oh = oh_a if idx is ia else oh_b
         vals = vals * (inv_count_a if idx is ia else inv_count_b)
-        return jnp.einsum("jn,bjd->bnd", oh, vals)
+        return _einsum("jn,bjd->bnd", oh, vals)
 
     # --- stage 1: orientation weld (drive q_b -> q_a * rel_quat) ----------
     # Applied BEFORE the anchor so the anchor sees welded orientations;
@@ -403,9 +409,8 @@ def _solve_body_pair_contact(pos, quat, spec, contact: BodyPairContact):
 def _solve_distance_group(x, inv_mass, group: DistanceGroup, dt):
     """Parallel distance-constraint solve for one conflict-free group.
 
-    Constraint indices are STATIC per task, so the scatter-back is lowered to
-    one-hot matmuls (TPU scatter ops serialize; an [P, C] x [C, 3] contraction
-    is MXU work — same trick as models/common.py)."""
+    Constraint indices are STATIC per task, so the scatter-back is a
+    constant one-hot [C, P] contraction."""
     P = x.shape[1]
     xi, xj = x[:, group.i], x[:, group.j]  # [B, C, 3] (static gathers)
     wi = inv_mass[..., group.i] if inv_mass.ndim == 2 else inv_mass[group.i][None]
@@ -426,8 +431,8 @@ def _solve_distance_group(x, inv_mass, group: DistanceGroup, dt):
     # constant-folded one-hot scatter matrices [C, P]
     oh_i = jax.nn.one_hot(group.i, P, dtype=x.dtype)
     oh_j = jax.nn.one_hot(group.j, P, dtype=x.dtype)
-    x = x + jnp.einsum("cp,bcd->bpd", oh_i, dx * wi[..., None])
-    x = x - jnp.einsum("cp,bcd->bpd", oh_j, dx * wj[..., None])
+    x = x + _einsum("cp,bcd->bpd", oh_i, dx * wi[..., None])
+    x = x - _einsum("cp,bcd->bpd", oh_j, dx * wj[..., None])
     return x
 
 
@@ -451,7 +456,7 @@ def _solve_self_contacts(x, inv_mass, sc: ParticleSelfContact):
     # pair is visited from its row)
     corr = viol / jnp.maximum(pair_w, 1e-12) * w[:, :, None]  # [B, N, N]
     counts = jnp.maximum((viol > 0).sum(axis=-1), 1)  # [B, N]
-    dx = jnp.einsum("bij,bijd->bid", corr, n) / counts[..., None]
+    dx = _einsum("bij,bijd->bid", corr, n) / counts[..., None]
     return x + dx
 
 
@@ -478,12 +483,12 @@ def _solve_attachments(x, inv_mass, pos, quat, spec, att: BodyAttachment):
     dx = lam[..., None] * n
 
     oh_p = jax.nn.one_hot(att.particle, x.shape[1], dtype=x.dtype)  # [A, NP] static
-    x = x + jnp.einsum("ap,bad->bpd", oh_p, dx * wp[..., None])
+    x = x + _einsum("ap,bad->bpd", oh_p, dx * wp[..., None])
 
     oh_b = jax.nn.one_hot(att.body, NB, dtype=pos.dtype)  # [A, NB] static
 
     def scatter(vals):
-        return jnp.einsum("an,bad->bnd", oh_b, vals)
+        return _einsum("an,bad->bnd", oh_b, vals)
 
     p_imp = -dx
     dpos = scatter(p_imp * im_b[..., None] * spec.free_pos[att.body])
@@ -517,13 +522,13 @@ def _conormal_manifolds(active, n, lam_n, vecs):
     one common-normal contact patch and keeps opposing patches separate.
     """
     pair = active[:, :, None] * active[:, None, :]  # [B, P, P]
-    A = (jnp.einsum("bpd,bqd->bpq", n, n) > 0.9) * pair
+    A = (_einsum("bpd,bqd->bpq", n, n) > 0.9) * pair
     cnt_safe = jnp.maximum(A.sum(-1), 1.0)  # [B, P]
-    n_sum = jnp.einsum("bpq,bqd->bpd", A, n)
+    n_sum = _einsum("bpq,bqd->bpd", A, n)
     n_bar = n_sum / jnp.maximum(jnp.linalg.norm(n_sum, axis=-1, keepdims=True), 1e-9)
-    lam_tot = jnp.einsum("bpq,bq->bp", A, lam_n)
+    lam_tot = _einsum("bpq,bq->bp", A, lam_n)
     means = tuple(
-        jnp.einsum("bpq,bqd->bpd", A, v) / cnt_safe[..., None] for v in vecs
+        _einsum("bpq,bqd->bpd", A, v) / cnt_safe[..., None] for v in vecs
     )
     return cnt_safe, n_bar, lam_tot, means
 

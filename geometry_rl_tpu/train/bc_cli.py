@@ -47,6 +47,10 @@ def main(argv=None):
     ap.add_argument("--override", nargs="*", default=[])
     args = ap.parse_args(argv)
 
+    from ..xla_config import configure_xla
+
+    configure_xla()
+
     from ..config import load_config, trainer_from_config
     from .bc import behavior_cloning, generate_data
     from .checkpoint import latest_step, restore_checkpoint, save_checkpoint

@@ -53,7 +53,7 @@ EQUIVARIANT_MODELS = ("hepi", "ponita_gcn", "empn")
 
 def build_policy(model_name: str, env, latent_dim: int = 64, num_ori: int = 16, **model_kw):
     """Policy module for a task (utils_algo_graph._make_probabilistic_actor).
-    Pass dtype=jnp.bfloat16 in model_kw for TPU-native mixed precision (params
+    Pass dtype=jnp.bfloat16 in model_kw for mixed precision (params
     stay f32; distribution outputs are cast back to f32 inside the models)."""
     cfg = env.cfg
     contextual_std = model_kw.pop("contextual_std", True)

@@ -47,9 +47,13 @@ def main(argv=None):
     ap.add_argument("--resume", default=None, help="checkpoint dir to resume from")
     args = ap.parse_args(argv)
 
-    # Pod-slice launches (deploy/launch_pod.sh sets GEOMRL_MULTIHOST=1, or
-    # explicit GEOMRL_COORDINATOR/NUM_PROCESSES/PROCESS_ID): wire the hosts
-    # into one SPMD runtime BEFORE any import creates a jnp constant and
+    from ..xla_config import configure_xla
+
+    configure_xla()
+
+    # Multi-process launches (GEOMRL_COORDINATOR/NUM_PROCESSES/PROCESS_ID):
+    # wire the processes into one SPMD runtime BEFORE any import creates a
+    # jnp constant and
     # commits the backend to single-process mode (package root is lazy for
     # exactly this reason).
     from ..parallel.multihost import is_main_process, maybe_initialize_distributed
@@ -112,8 +116,8 @@ def main(argv=None):
     best_reward = -float("inf")
     frames_per_batch = trainer.cfg.steps_per_batch * trainer.env.cfg.num_envs
 
-    # Data-parallel over every device (all chips of this host, or of the whole
-    # pod slice under multihost): shard the env axis, replicate params; XLA
+    # Data-parallel over every device (all cards of this host, or of every
+    # process under multihost): shard the env axis, replicate params; XLA
     # inserts the gradient psums. "auto" engages whenever the env count
     # divides over >1 device; set parallel.data_parallel=false to pin one chip.
     import contextlib

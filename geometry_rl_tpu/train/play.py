@@ -54,6 +54,10 @@ def main(argv=None):
     )
     args = ap.parse_args(argv)
 
+    from ..xla_config import configure_xla
+
+    configure_xla()
+
     from ..config import load_config, trainer_from_config
     from .checkpoint import latest_step, restore_checkpoint
 

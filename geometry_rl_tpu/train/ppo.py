@@ -1,6 +1,6 @@
 """On-device TRPL / PPO trainer — collect, GAE, and update in one jit.
 
-TPU redesign of `examples/torchrl/train.py` + the SyncDataCollector: the
+JAX redesign of `examples/torchrl/train.py` + the SyncDataCollector: the
 reference stepped the sim and policy in Python, stored batches on CPU
 (`storing_device="cpu"`, train.py:120), and round-tripped dist params through
 a C++ projection per minibatch. Here one `train_iteration` is a single XLA
@@ -8,7 +8,7 @@ program: `lax.scan` rollout over T control steps -> GAE -> ppo_epochs x
 minibatch scans, with the KL projection fused into the loss. Nothing leaves
 the device; host code only reads scalar metrics.
 
-Layout notes (TPU): batch axes [T, B] -> flattened [T*B] for the update;
+Layout notes: batch axes [T, B] -> flattened [T*B] for the update;
 graph rebuilds per minibatch gather per-env static topology by env id (the
 reference also rebuilds the PyG graph per minibatch — trpl call stack §3.1).
 """
@@ -112,8 +112,8 @@ class Trainer:
     def __init__(
         self,
         env,
-        policy,  # flax module: (graph, feats) -> DiagGaussian
-        critic,  # flax module: (graph, feats) -> [B]
+        policy,  # models.nn module: (graph, feats) -> DiagGaussian
+        critic,  # models.nn module: (graph, feats) -> [B]
         cfg: TrainConfig,
         projection: Optional[BaseProjection] = None,
         policy_builder: Optional[RigidGraphBuilder] = None,

@@ -1,6 +1,6 @@
 """Geometry math core: quaternions, rigid transforms, sphere grids.
 
-TPU-native replacement for the `omni.isaac.orbit.utils.math` surface the
+JAX replacement for the `omni.isaac.orbit.utils.math` surface the
 reference tasks consume (see SURVEY.md §2.10: `transform_points`, `quat_mul`,
 `quat_from_euler_xyz`, `quat_error_magnitude`, `quat_apply_yaw`,
 `sample_uniform`) plus the PONITA S2 orientation grids

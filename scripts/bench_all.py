@@ -22,8 +22,8 @@ TASKS = [
     ("rigid_insertion_two_agents", 1024, {}),
     ("rope_closing", 512, {}),
     ("rope_shaping", 256, {}),
-    ("cloth_hanging", 256, {}),
-    ("cloth_hanging_pallas", 256, {"use_pallas_solver": True}),
+    ("cloth_hanging_xla", 256, {"use_pallas_solver": False}),
+    ("cloth_hanging", 256, {}),  # fused kernel on a GPU
 ]
 
 
@@ -60,7 +60,7 @@ def bench_env_only(task, B, kwargs):
 
 def bench_collection(task, B, kwargs):
     trainer = build_agent(
-        task=task.replace("_pallas", ""),
+        task=task.replace("_xla", ""),
         model="hepi",
         num_envs=B,
         latent_dim=64,
@@ -99,11 +99,11 @@ def bench_collection(task, B, kwargs):
 def main():
     results = {}
     for task, B, kwargs in TASKS:
-        base_task = task.replace("_pallas", "")
+        base_task = task.replace("_xla", "")
         try:
             env_rate = bench_env_only(base_task, B, kwargs)
             results[task] = {"num_envs": B, "env_only_steps_per_s": round(env_rate, 1)}
-            if task in ("rigid_insertion", "cloth_hanging", "cloth_hanging_pallas", "rope_closing"):
+            if task in ("rigid_insertion", "cloth_hanging", "cloth_hanging_xla", "rope_closing"):
                 coll = bench_collection(task, B, kwargs)
                 results[task]["collection_steps_per_s"] = round(coll, 1)
         except Exception as e:  # keep going; report failures

@@ -1,6 +1,6 @@
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
-"""Learning sanity check: train rigid_insertion HEPi+TRPL briefly on TPU and
+"""Learning sanity check: train rigid_insertion HEPi+TRPL briefly on the accelerator and
 report the episode-reward trend. Not a unit test (takes minutes); run manually
 or via the driver."""
 

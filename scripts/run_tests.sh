@@ -2,8 +2,7 @@
 # Crash-isolated test runner.
 #
 # Plain `pytest tests/` dies wholesale if any test segfaults — observed
-# rarely in XLA CPU compilation when a TPU training job runs concurrently
-# on this 1-CPU box (PLAN.md round-3 queue #5). pytest-xdist runs tests in
+# rarely in XLA CPU compilation under memory pressure. pytest-xdist runs tests in
 # worker processes: a segfault is reported as that one test FAILED
 # ("worker crashed") and the rest of the suite still runs.
 #

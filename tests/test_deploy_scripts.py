@@ -1,7 +1,6 @@
 """Smoke tests for the deploy scripts' --dry-run / DRY_RUN=1 modes.
 
-The scripts themselves can't execute here (no SLURM daemon, no gcloud, no
-pod), but their argument handling, flag composition and usage errors are
+The scripts themselves can't execute here (no SLURM daemon, no GPU), but their argument handling, flag composition and usage errors are
 testable: dry-run prints the exact command that would run (VERDICT r2
 "keep them smoke-testable so CI can at least parse/flag-check them")."""
 
@@ -20,8 +19,8 @@ def run(cmd, **env):
     )
 
 
-def test_launch_tpu_dry_run():
-    r = run(["bash", "deploy/launch_tpu.sh", "--dry-run",
+def test_launch_gpu_dry_run():
+    r = run(["bash", "deploy/launch_gpu.sh", "--dry-run",
              "rigid_insertion_multi_hepi_trpl", "env.num_envs=8", "seed=3"])
     assert r.returncode == 0, r.stderr
     out = r.stdout.strip()
@@ -30,34 +29,24 @@ def test_launch_tpu_dry_run():
     assert "--override env.num_envs=8 seed=3" in out
 
 
-def test_launch_tpu_dry_run_env_var_and_no_overrides():
-    r = run(["bash", "deploy/launch_tpu.sh", "cloth_hanging_multi_hepi_trpl"], DRY_RUN=1)
+def test_launch_gpu_dry_run_env_var_and_no_overrides():
+    r = run(["bash", "deploy/launch_gpu.sh", "cloth_hanging_multi_hepi_trpl"], DRY_RUN=1)
     assert r.returncode == 0, r.stderr
     assert "--override" not in r.stdout  # no empty --override tail
 
 
-def test_launch_tpu_usage_error():
-    r = run(["bash", "deploy/launch_tpu.sh", "--dry-run"])
+def test_launch_gpu_usage_error():
+    r = run(["bash", "deploy/launch_gpu.sh", "--dry-run"])
     assert r.returncode != 0
     assert "usage" in r.stderr
 
 
-def test_launch_pod_dry_run():
-    r = run(["bash", "deploy/launch_pod.sh", "--dry-run", "my-pod", "us-east5-a",
-             "rigid_insertion_multi_hepi_trpl", "env.num_envs=4096"])
-    assert r.returncode == 0, r.stderr
-    out = r.stdout.strip()
-    assert out.startswith("DRY-RUN: gcloud compute tpus tpu-vm ssh my-pod")
-    assert "--zone us-east5-a" in out
-    assert "--worker=all" in out
-    assert "GEOMRL_MULTIHOST=1" in out
-    assert "--override env.num_envs=4096" in out
-
-
-def test_launch_pod_usage_error():
-    r = run(["bash", "deploy/launch_pod.sh", "--dry-run", "only-name"])
+def test_launch_gpu_refuses_without_gpu():
+    # outside a dry run the launcher checks for a card before starting
+    r = run(["bash", "deploy/launch_gpu.sh", "rigid_insertion_multi_hepi_trpl"],
+            PATH="/usr/bin:/bin")
     assert r.returncode != 0
-    assert "zone" in r.stderr
+    assert "no GPU visible" in r.stderr
 
 
 def test_slurm_job_dry_run():
@@ -78,7 +67,12 @@ def test_slurm_job_default_seed():
     assert "seed=0" in r.stdout
 
 
-@pytest.mark.parametrize("script", ["launch_tpu.sh", "launch_pod.sh", "slurm_job.sbatch"])
+def test_slurm_job_requests_one_gpu():
+    with open(os.path.join(REPO, "deploy", "slurm_job.sbatch")) as f:
+        assert "#SBATCH --gres=gpu:1" in f.read().splitlines()
+
+
+@pytest.mark.parametrize("script", ["launch_gpu.sh", "slurm_job.sbatch"])
 def test_bash_syntax(script):
     r = run(["bash", "-n", os.path.join("deploy", script)])
     assert r.returncode == 0, r.stderr

@@ -138,38 +138,6 @@ def test_hole_train_test_split_disjoint():
     assert not np.array_equal(np.asarray(train.hole_mask), np.asarray(test.hole_mask))
 
 
-def test_pallas_solver_matches_xla():
-    """The fused Pallas position solve (interpret mode on CPU) must reproduce
-    the XLA constraint-solver trajectory."""
-    env_x = make_env("cloth_hanging", num_envs=2)
-    env_p = make_env("cloth_hanging", num_envs=2)
-
-    state_x = env_x.reset(jax.random.PRNGKey(11))
-    state_p = env_p.reset(jax.random.PRNGKey(11))
-    np.testing.assert_allclose(
-        np.asarray(state_x.scene.particles.pos), np.asarray(state_p.scene.particles.pos)
-    )
-
-    action = jnp.ones((2, 12)) * 0.3
-    for _ in range(5):
-        sx = env_x._physics(env_x._apply_action(state_x.scene, action), state_x.hanger_pos)
-        sp = env_p._physics_pallas(
-            env_p._apply_action(state_p.scene, action), state_p.hanger_pos, interpret=True
-        )
-        state_x = state_x._replace(scene=sx)
-        state_p = state_p._replace(scene=sp)
-        np.testing.assert_allclose(
-            np.asarray(state_x.scene.particles.pos),
-            np.asarray(state_p.scene.particles.pos),
-            atol=2e-4,
-        )
-        np.testing.assert_allclose(
-            np.asarray(state_x.scene.bodies.pos),
-            np.asarray(state_p.scene.bodies.pos),
-            atol=2e-4,
-        )
-
-
 def test_object_target_distance_info(env):
     import jax
     import jax.numpy as jnp
@@ -183,20 +151,17 @@ def test_object_target_distance_info(env):
 
 
 def test_pallas_tiled_solver_matches_xla():
-    """Batch-tiled (env-in-lanes) Pallas solve reproduces the XLA trajectory."""
-    # warmup_steps=0: reset() warmup would run the forced tiled solver in
-    # non-interpret mode, which CPU cannot execute
-    env_x = make_env("cloth_hanging", num_envs=2, warmup_steps=0)
-    env_p = make_env("cloth_hanging", num_envs=2, warmup_steps=0, use_pallas_solver="tiled")
-
-    state_x = env_x.reset(jax.random.PRNGKey(11))
-    state_p = env_p.reset(jax.random.PRNGKey(11))
+    """The fused position-solve kernel (Pallas, Triton route; interpret mode
+    on CPU) reproduces the XLA solver trajectory."""
+    env = make_env("cloth_hanging", num_envs=2, warmup_steps=0, use_pallas_solver=False)
+    state_x = env.reset(jax.random.PRNGKey(11))
+    state_p = env.reset(jax.random.PRNGKey(11))
 
     action = jnp.ones((2, 12)) * 0.3
     for _ in range(5):
-        sx = env_x._physics(env_x._apply_action(state_x.scene, action), state_x.hanger_pos)
-        sp = env_p._physics_pallas(
-            env_p._apply_action(state_p.scene, action), state_p.hanger_pos, interpret=True
+        sx = env._physics(env._apply_action(state_x.scene, action), state_x.hanger_pos)
+        sp = env._physics_pallas(
+            env._apply_action(state_p.scene, action), state_p.hanger_pos, interpret=True
         )
         state_x = state_x._replace(scene=sx)
         state_p = state_p._replace(scene=sp)
@@ -210,6 +175,43 @@ def test_pallas_tiled_solver_matches_xla():
             np.asarray(state_p.scene.bodies.pos),
             atol=2e-4,
         )
+
+
+@pytest.mark.parametrize("num_envs", [4, 16])
+def test_cloth_kernel_matches_xla_per_step(num_envs):
+    """From the same states, one env step of the kernel (interpret mode)
+    against the XLA solver, with per-env hole variants and actions."""
+    env = make_env("cloth_hanging", num_envs=num_envs, warmup_steps=0, use_pallas_solver=False)
+    state = env.reset(jax.random.PRNGKey(3))
+    A = env.cfg.action_dim
+    for t in range(2):
+        action = jnp.sin(jnp.arange(num_envs * A, dtype=jnp.float32).reshape(num_envs, A) * 0.7 + t)
+        pre = env._apply_action(state.scene, action)
+        sx = env._physics(pre, state.hanger_pos)
+        sp = env._physics_pallas(pre, state.hanger_pos, interpret=True)
+        np.testing.assert_allclose(np.asarray(sp.particles.pos), np.asarray(sx.particles.pos), atol=2e-4)
+        np.testing.assert_allclose(np.asarray(sp.bodies.pos), np.asarray(sx.bodies.pos), atol=2e-4)
+        state = state._replace(scene=sx)
+
+
+def test_pack_groups_pads_to_spare_row():
+    """Padded constraint lanes point at the spare last row with mask 0."""
+    from geometry_rl_tpu.sim.pallas_cloth import kernel_rows, pack_groups
+
+    env = make_env("cloth_hanging", num_envs=3, warmup_steps=0)
+    groups = env.distance_groups
+    P = env.solve_spec.num_particles + env.solve_spec.num_bodies
+    gi, gj, rest, mask = pack_groups(groups, P)
+    rows = kernel_rows(P)
+    assert rows == 256 and rows > P
+    assert gi.shape == gj.shape == rest.shape == (16, 128) and mask.shape == (3, 16, 128)
+    for g, grp in enumerate(groups):
+        C = grp.i.shape[0]
+        np.testing.assert_array_equal(np.asarray(gi[g, :C]), np.asarray(grp.i))
+        np.testing.assert_array_equal(np.asarray(mask[:, g, :C]), np.asarray(grp.mask))
+        assert (np.asarray(gi[g, C:]) == rows - 1).all() and (np.asarray(gj[g, C:]) == rows - 1).all()
+        assert (np.asarray(mask[:, g, C:]) == 0).all()
+    assert (np.asarray(gi[len(groups):]) == rows - 1).all()
 
 
 def test_cloth_action_term_parity():
@@ -225,53 +227,32 @@ def test_cloth_action_term_parity():
     np.testing.assert_allclose(v[:, 1], [[0.0, 0.0, -1.0]] * 2)  # z allowed
 
 
-def test_pallas_solver_matches_xla_with_self_collision():
-    """Both Pallas kernels must reproduce the XLA trajectory WITH the
-    all-pairs self-collision pass enabled (no silent fallback anymore)."""
-    env_x = make_env("cloth_hanging", num_envs=2, warmup_steps=0, self_collision=True)
-    env_p = make_env(
-        "cloth_hanging", num_envs=2, warmup_steps=0, self_collision=True,
-        use_pallas_solver=True,
-    )
-    env_t = make_env(
-        "cloth_hanging", num_envs=2, warmup_steps=0, self_collision=True,
-        use_pallas_solver="tiled",
-    )
-    assert env_p.solve_spec.self_min_dist > 0.0
+def test_cloth_kernel_request_rejects_self_collision():
+    """The kernel has no self-collision pass: an explicit request raises and
+    "auto" keeps the XLA solver."""
+    with pytest.raises(ValueError, match="self_collision"):
+        make_env("cloth_hanging", num_envs=2, self_collision=True, use_pallas_solver=True)
+    env = make_env("cloth_hanging", num_envs=2, warmup_steps=0, self_collision=True)
+    assert env.solver_mode is False
 
-    state_x = env_x.reset(jax.random.PRNGKey(11))
-    state_p = env_p.reset(jax.random.PRNGKey(11))
-    state_t = env_t.reset(jax.random.PRNGKey(11))
 
-    action = jnp.ones((2, 12)) * 0.3
-    for _ in range(3):
-        sx = env_x._physics(env_x._apply_action(state_x.scene, action), state_x.hanger_pos)
-        sp = env_p._physics_pallas(
-            env_p._apply_action(state_p.scene, action), state_p.hanger_pos, interpret=True
-        )
-        st = env_t._physics_pallas(
-            env_t._apply_action(state_t.scene, action), state_t.hanger_pos, interpret=True
-        )
-        state_x = state_x._replace(scene=sx)
-        state_p = state_p._replace(scene=sp)
-        state_t = state_t._replace(scene=st)
-        for s in (state_p, state_t):
-            np.testing.assert_allclose(
-                np.asarray(state_x.scene.particles.pos),
-                np.asarray(s.scene.particles.pos),
-                atol=2e-4,
-            )
-            np.testing.assert_allclose(
-                np.asarray(state_x.scene.bodies.pos),
-                np.asarray(s.scene.bodies.pos),
-                atol=2e-4,
-            )
+def test_cloth_solver_auto_by_platform(monkeypatch):
+    """"auto" is the kernel on a GPU and the XLA solver elsewhere, and the
+    XLA solver on a GPU whenever self-collision or the material is on."""
+    from geometry_rl_tpu.envs.cloth import ClothEnv, ClothTaskCfg
+
+    assert ClothEnv._choose_solver(ClothTaskCfg()) is False  # CPU here
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert ClothEnv._choose_solver(ClothTaskCfg()) is True
+    assert ClothEnv._choose_solver(ClothTaskCfg(self_collision=True)) is False
+    assert ClothEnv._choose_solver(ClothTaskCfg(restitution=0.2)) is False
+    assert ClothEnv._choose_solver(ClothTaskCfg(use_pallas_solver=False)) is False
 
 
 def test_cloth_material_steers_solver_and_plumbs():
     """Material on: 'auto' resolves to the XLA solver (the velocity pass is
-    XLA-only), an explicit Pallas solver raises, and the hook contact carries
-    the coefficients."""
+    XLA-only), an explicit kernel request raises, and the hook contact
+    carries the coefficients."""
     import pytest
 
     from geometry_rl_tpu.envs import make_env
@@ -282,5 +263,5 @@ def test_cloth_material_steers_solver_and_plumbs():
     (c,) = env._hanger_contacts(env.reset(jax.random.PRNGKey(0)).scene.bodies.pos[:, 0])
     assert c.restitution == 0.2 and c.dynamic_friction == c.friction
     with pytest.raises(ValueError, match="velocity-pass material"):
-        make_env("cloth_hanging", num_envs=2, use_pallas_solver="tiled",
+        make_env("cloth_hanging", num_envs=2, use_pallas_solver=True,
                  dynamic_friction_scale=1.0)

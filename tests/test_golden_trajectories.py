@@ -67,24 +67,23 @@ def test_golden_trajectory(task):
 
 
 def test_pallas_solver_cross_gate_128_envs():
-    """Solver cross-gate at flagship-like batch (VERDICT r1 #8): the tiled
-    Pallas cloth solver must reproduce the XLA solver's trajectory at >=128
-    envs — the 2-env parity tests in test_envs_cloth.py miss tiling bugs
-    that only appear when the grid spans many envs."""
+    """Solver cross-gate at flagship-like batch: the fused cloth kernel
+    (interpret mode on CPU) must reproduce the XLA solver's trajectory at
+    128 envs — the small-batch parity tests in test_envs_cloth.py miss
+    indexing bugs that only appear when the grid spans many envs."""
     B, steps = 128, 6
-    env_x = make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver=False)
-    env_p = make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver="tiled")
-    state = env_x.reset(jax.random.PRNGKey(7))
-    A = env_x.cfg.action_dim
+    env = make_env("cloth_hanging", num_envs=B, warmup_steps=0, use_pallas_solver=False)
+    state = env.reset(jax.random.PRNGKey(7))
+    A = env.cfg.action_dim
     for t in range(steps):
         action = jnp.sin(jnp.arange(B * A, dtype=jnp.float32).reshape(B, A) * 0.7 + t * 0.3)
-        pre = env_x._apply_action(state.scene, action)
-        sx = env_x._physics(pre, state.hanger_pos)
-        # interpret=True lets the Pallas kernel run on CPU in tests; both
-        # solvers advance the SAME state each step (f32 accumulation-order
-        # noise amplifies ~3x/step through cloth contact if left free-running,
-        # so a trajectory-endpoint compare would gate chaos, not the solver)
-        sp = env_p._physics_pallas(pre, state.hanger_pos, interpret=True)
+        pre = env._apply_action(state.scene, action)
+        sx = env._physics(pre, state.hanger_pos)
+        # both solvers advance the SAME state each step (f32 accumulation-
+        # order noise amplifies ~3x/step through cloth contact if left
+        # free-running, so a trajectory-endpoint compare would gate chaos,
+        # not the solver)
+        sp = env._physics_pallas(pre, state.hanger_pos, interpret=True)
         np.testing.assert_allclose(
             np.asarray(sp.particles.pos), np.asarray(sx.particles.pos), atol=2e-4
         )
@@ -92,6 +91,16 @@ def test_pallas_solver_cross_gate_128_envs():
             np.asarray(sp.bodies.pos), np.asarray(sx.bodies.pos), atol=2e-4
         )
         state = state._replace(scene=sx)
+
+
+@pytest.mark.gpu
+def test_cloth_kernel_compiled_matches_xla(gpu):
+    """The compiled kernel on the card against the XLA solver at 256 envs
+    (chip_smoke.py runs the same check)."""
+    import chip_smoke
+
+    worst = chip_smoke.cloth_kernel_parity(num_envs=256)
+    assert max(worst.values()) <= chip_smoke.CLOTH_ATOL, worst
 
 
 if __name__ == "__main__":

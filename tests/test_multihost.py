@@ -1,8 +1,8 @@
 """Multi-host SPMD: 2 processes x 4 virtual CPU devices == one 8-device run.
 
-The reference has no multi-host story (single GPU, SURVEY §2.11); the TPU
-framework's pod-slice path is `jax.distributed.initialize` + the global env
-mesh (parallel/multihost.py). This test spawns two REAL processes wired over
+The reference has no multi-host story (single GPU, SURVEY §2.11); this
+framework's multi-process path is `jax.distributed.initialize` + the global
+env mesh (parallel/multihost.py). This test spawns two REAL processes wired over
 a localhost coordinator (Gloo collectives) and drives the actual training
 CLI end-to-end in each, then checks the logged metrics match a single-process
 8-device run of the same config — multi-host data-parallelism is semantically
@@ -125,3 +125,25 @@ def test_two_process_cli_matches_single_process(tmp_path):
                 assert v_mh != v_mh, k
                 continue
             assert abs(v_mh - v_ref) <= a + r * abs(v_ref), (row, k, v_mh, v_ref)
+
+
+def test_multihost_binds_each_process_to_one_card(monkeypatch):
+    import jax
+
+    from geometry_rl_tpu.parallel import multihost
+
+    for k, v in {"GEOMRL_COORDINATOR": "localhost:1234", "GEOMRL_NUM_PROCESSES": "4",
+                 "GEOMRL_PROCESS_ID": "2"}.items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+    monkeypatch.setattr(jax.distributed, "initialize", lambda **kw: seen.update(kw))
+    assert multihost.maybe_initialize_distributed() is True
+    assert seen == {"coordinator_address": "localhost:1234", "num_processes": 4,
+                    "process_id": 2, "local_device_ids": [2]}
+
+
+def test_single_process_skips_distributed_init(monkeypatch):
+    from geometry_rl_tpu.parallel import multihost
+
+    monkeypatch.delenv("GEOMRL_COORDINATOR", raising=False)
+    assert multihost.maybe_initialize_distributed() is False

@@ -222,3 +222,13 @@ def test_cloth_env_step_under_mesh():
     # env-sharded layout survives the jitted step (no silent gather)
     spec = state.scene.particles.pos.sharding.spec
     assert spec and spec[0] == ENV_AXIS, spec
+
+
+def test_minibatch_gradient_one_vs_eight_devices():
+    """The gradient of one minibatch sharded over 8 devices equals the
+    one-device gradient up to the order of the f32 sums (chip_smoke.py
+    --four-cards runs the same check at flagship width on 4 cards)."""
+    import chip_smoke
+
+    small = {"env": {"num_envs": 16}, "algorithm": {"dtype": "float32", "latent_dim": 8, "num_ori": 4}}
+    assert chip_smoke.minibatch_gradient_diff(small, 8) <= chip_smoke.GRAD_RTOL

@@ -289,7 +289,7 @@ def test_kl_pen_beta_adapts():
 
 
 def test_kl_pen_beta_cannot_underflow_to_absorbing_zero():
-    """Regression (docs/r5_kl_ppo_insertion.log): beta is halved once per
+    """Regression (a 20M-frame kl_ppo insertion run): beta is halved once per
     MINIBATCH; a long low-KL stretch in fp32 underflowed it to exactly 0.0,
     which is absorbing (0*increment == 0) — the penalty vanished permanently
     and the unclipped surrogate diverged (KL -> 5e2). beta must stay in
